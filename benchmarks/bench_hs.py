@@ -11,7 +11,7 @@ Baseline: the reference solving a subsample sequentially on CPU (cached
 in ``artifacts/baseline_reference.json``).
 
 Usage: python benchmarks/bench_hs.py [--tiers f64_1024 f32_16384_tol4 ...]
-(no --tiers = all; chunk invocations under the watchdog on the TPU).
+(no --tiers = all; --tiers splits the sweep over several invocations).
 """
 
 import argparse
@@ -147,7 +147,7 @@ def main():
 
     from baseline_cache import ART, write_artifact
 
-    artifact = os.environ.get("BENCH_ARTIFACT", "r5_hs.json")
+    artifact = os.environ.get("BENCH_ARTIFACT", "hs.json")
     prior = os.path.join(ART, artifact)
     if args.tiers is not None and os.path.exists(prior):
         with open(prior) as f:

@@ -7,7 +7,7 @@ Both sides run on CPU (the reference is CPU-only) with the same
 tolerances (rtol=1e-6/atol=1e-9 — the scipy defaults the reference
 inherits are coarser, so this is conservative for us).  Reports
 segments, steps, Newton/function-eval work and wall-clock, and writes
-``benchmarks/artifacts/r3_integration.json``.
+``benchmarks/artifacts/integration.json``.
 
 Usage: env PYTHONPATH= python benchmarks/bench_integration.py
 """
@@ -165,7 +165,7 @@ def main():
         rows.append({"problem": prob, "engine": "reference/BDF", **ref})
 
     os.makedirs(ART, exist_ok=True)
-    out = os.path.join(ART, os.environ.get("BENCH_ARTIFACT", "r4_integration.json"))
+    out = os.path.join(ART, os.environ.get("BENCH_ARTIFACT", "integration.json"))
     with open(out, "w") as f:
         json.dump(rows, f, indent=1)
     print(f"wrote {out}")

@@ -1,27 +1,26 @@
-"""KKT factorize+solve microbenchmark (BASELINE.md secondary metric).
+"""KKT factorize+solve microbenchmark on the GPU.
 
-Times one Newton-step KKT cycle (assemble + factor + back-solve) for a
-range of system sizes and backends, on whatever accelerator JAX selects;
-compares against scipy's SuperLU (the reference default backend) on the
-same matrices when scipy is available.
+Times one factor + solve of a saddle-point KKT system for each dense
+linear-solver tier (``LU``, ``LDLT``, and the mixed-precision
+``PallasLDLT`` tier), and the two plain f32 LDL^T factorizations the
+mixed tier could use (``blocked_ldlt.ldlt_factor_blocked`` on full-height
+masked panels, ``mixed_ldlt.ldlt_factor_f32`` on statically unrolled
+super-blocks).  Median of repeated warm calls, each ending in
+``block_until_ready``.  Exits non-zero when JAX finds no GPU.
 
-Usage: python benchmarks/bench_kkt.py [sizes...]
+Usage: python benchmarks/bench_kkt.py [sizes...]    (default 1024 4096)
+
+Prints one JSON line per size, tagged with the device.
 """
 
+import json
 import os
 import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-import jax
-import jax.numpy as jnp
 import numpy as np
-
-jax.config.update("jax_enable_x64", True)
-
-from pygradflow_tpu.linalg import linear_solver  # noqa: E402
-from pygradflow_tpu.params import LinearSolverType  # noqa: E402
 
 
 def make_kkt(n, m, rng):
@@ -31,91 +30,83 @@ def make_kkt(n, m, rng):
     return np.block([[K, J.T], [J, -0.1 * np.eye(m)]])
 
 
-def time_backend(name, lin, A, b, reps=20):
-    fact_solve = jax.jit(lambda A, b: lin.solve(lin.factor(A), b))
-    x = fact_solve(A, b)
-    jax.block_until_ready(x)
+def median_ms(fn, args, reps=7):
+    import jax
 
-    resid = float(jnp.linalg.norm(A @ x - b) / jnp.linalg.norm(b))
-
-    t0 = time.perf_counter()
+    jax.block_until_ready(fn(*args))
+    times = []
     for _ in range(reps):
-        x = fact_solve(A, b)
-    jax.block_until_ready(x)
-    ms = (time.perf_counter() - t0) / reps * 1e3
-    print(f"  {name:>12s}: {ms:8.2f} ms/iter   resid {resid:.1e}")
-    return ms
-
-
-def time_scipy(A, b, reps=20):
-    try:
-        import scipy.sparse as sp
-        import scipy.sparse.linalg as spla
-    except ImportError:
-        return None
-
-    An = np.asarray(A)
-    bn = np.asarray(b)
-    Asp = sp.csc_matrix(An)
-
-    def fact_solve():
-        return spla.splu(Asp).solve(bn)
-
-    fact_solve()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fact_solve()
-    ms = (time.perf_counter() - t0) / reps * 1e3
-    print(f"  {'scipy-splu':>12s}: {ms:8.2f} ms/iter   (reference default backend)")
-    return ms
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn(*args))
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
 
 
 def main():
-    from baseline_cache import load_baseline, write_artifact
+    import jax
 
-    sizes = [int(s) for s in sys.argv[1:]] or [128, 256, 512, 1024]
+    devices = jax.devices()
+    if devices[0].platform != "gpu":
+        sys.exit(f"bench_kkt: needs a GPU, JAX found {devices[0].platform!r}")
+
+    import jax.numpy as jnp
+
+    import pygradflow_tpu  # noqa: F401  (x64 + compile cache)
+    from pygradflow_tpu.jit import full_f32
+    from pygradflow_tpu.linalg import linear_solver
+    from pygradflow_tpu.linalg.blocked_ldlt import ldlt_factor_blocked
+    from pygradflow_tpu.linalg.ldlt import ldlt_factor
+    from pygradflow_tpu.linalg.mixed_ldlt import ldlt_factor_f32
+    from pygradflow_tpu.params import LinearSolverType
+
+    sizes = [int(s) for s in sys.argv[1:]] or [1024, 4096]
     rng = np.random.default_rng(0)
+    tiers = {
+        "lu": LinearSolverType.LU,
+        "ldlt": LinearSolverType.LDLT,
+        "pallas_ldlt": LinearSolverType.PallasLDLT,
+    }
+    candidates = {
+        "ldlt_factor_blocked_f32": jax.jit(
+            full_f32(lambda a: ldlt_factor_blocked(a.astype(jnp.float32)))
+        ),
+        "ldlt_factor_f32_sb128": jax.jit(full_f32(ldlt_factor_f32)),
+        "ldlt_factor_f32_sb256": jax.jit(
+            full_f32(lambda a: ldlt_factor_f32(a, super_block=256))
+        ),
+    }
+    rank1_sweep = jax.jit(ldlt_factor)
 
-    backends = [
-        ("lu", LinearSolverType.LU),
-        ("ldlt", LinearSolverType.LDLT),
-        ("pallas_ldlt", LinearSolverType.PallasLDLT),
-    ]
-
-    cached_scipy = (load_baseline("kkt") or {}).get("scipy_splu_ms_per_iter", {})
-    rows = []
     for size in sizes:
-        n = int(size * 0.75)
+        n = (3 * size) // 4
         m = size - n
         A = jnp.asarray(make_kkt(n, m, rng))
         b = jnp.asarray(rng.standard_normal(size))
-        print(f"KKT size {size} (n={n}, m={m}) on {jax.devices()[0].platform}:")
-        row = {"size": size, "n": n, "m": m, "platform": jax.devices()[0].platform}
-        for name, lst in backends:
-            try:
-                lin = linear_solver(lst, symmetric=True)
-                row[f"{name}_ms"] = time_backend(name, lin, A, b)
-            except Exception as e:
-                print(f"  {name:>12s}: FAILED ({str(e)[:60]})")
-                row[f"{name}_ms"] = None
-        if str(size) in cached_scipy:
-            row["scipy_splu_ms"] = cached_scipy[str(size)]
-            print(
-                f"  {'scipy-splu':>12s}: {row['scipy_splu_ms']:8.2f} ms/iter"
-                "   (cached measured baseline)"
+        row = {
+            "size": size,
+            "n": n,
+            "m": m,
+            "platform": devices[0].platform,
+            "device_kind": devices[0].device_kind,
+            "device_count": len(devices),
+        }
+        for name, kind in tiers.items():
+            lin = linear_solver(kind, symmetric=True)
+            fn = jax.jit(lambda A, b, lin=lin: lin.solve(lin.factor(A), b))
+            x = fn(A, b)
+            row[f"{name}_resid"] = float(
+                jnp.linalg.norm(A @ x - b) / jnp.linalg.norm(b)
             )
-        else:
-            row["scipy_splu_ms"] = time_scipy(A, b)
-        best = min(
-            (row[f"{nm}_ms"] for nm, _ in backends if row.get(f"{nm}_ms")),
-            default=None,
-        )
-        if best and row["scipy_splu_ms"]:
-            row["speedup_vs_scipy"] = row["scipy_splu_ms"] / best
-        rows.append(row)
-
-    out = write_artifact("r2_kkt.json", rows)
-    print(f"wrote {out}")
+            row[f"{name}_ms"] = median_ms(fn, (A, b))
+        for name, fn in candidates.items():
+            row[f"{name}_ms"] = median_ms(fn, (A,))
+        # the serial part of ldlt_factor_f32: one (128, 128) rank-1 sweep,
+        # and that times the number of super-blocks
+        block = jnp.asarray(A[:128, :128], jnp.float32)
+        sweep_ms = median_ms(rank1_sweep, (block,))
+        row["rank1_sweep_128_ms"] = sweep_ms
+        row["rank1_sweeps_total_ms"] = sweep_ms * -(-size // 128)
+        print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

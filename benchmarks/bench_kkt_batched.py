@@ -1,20 +1,18 @@
-"""Batched KKT factor+solve throughput (round-3 directive #6).
+"""Batched KKT factor+solve throughput of the mixed-precision tier.
 
-The single-instance KKT numbers (``bench_kkt.py``) are latency-bound on
-this rig (~1 ms/op launch floor); the real TPU lever is *batching*:
-``jax.vmap`` reaches the grid-free batched Pallas kernel through its
-``custom_vmap`` rule (one kernel call ``fori_loop``-ing over instances —
-this Mosaic toolchain cannot legalize gridded calls, CLAUDE.md), and the
-f64 refinement GEMVs batch natively in XLA.
+``jax.vmap`` of the tier (``LinearSolverType.PallasLDLT``: plain-XLA f32
+LDL^T + f64 refinement) batches every step natively: the rank-1 sweeps
+are elementwise over the batch, the panel solves and trailing updates are
+batched triangular solves and GEMMs.
 
 Sweeps batch x size, times ``vmap(factor)+vmap(solve)`` as ONE jitted
 dispatch (min over repeats), and reports effective f32 TFLOP/s for the
-factorization (n^3/3 FLOPs per instance) so the MXU-utilization story is
-explicit.  Per-instance correctness is asserted against the f64 direct
-solve at every cell.
+factorization (n^3/3 FLOPs per instance).  Per-instance correctness is
+asserted against the f64 direct solve at every cell.  Runs on whatever
+device JAX selects and records it; a GPU measurement needs a GPU.
 
-Usage (TPU): python benchmarks/bench_kkt_batched.py [--batches 8 32 128]
-             [--sizes 512 1024 2048] [--out artifacts/r3_kkt_batched.json]
+Usage: python benchmarks/bench_kkt_batched.py [--batches 8 32 128]
+       [--sizes 512 1024 2048] [--out artifacts/kkt_batched.json]
 """
 
 import argparse
@@ -47,7 +45,7 @@ def main():
         default=os.path.join(
             os.path.dirname(os.path.abspath(__file__)),
             "artifacts",
-            "r3_kkt_batched.json",
+            "kkt_batched.json",
         ),
     )
     args = parser.parse_args()
@@ -64,15 +62,14 @@ def main():
 
     rng = np.random.default_rng(7)
 
-    # HBM guard: f64 input + f32 working copy + packed f32 factor
-    # + refine-loop temps; (2048, 64) measured 16.27 GB on a 15.75 GB
-    # chip => effective multiplier ~8x the f64 input (XLA double-buffers
-    # the while-loop carries)
+    # device-memory guard: f64 input + f32 working copy + packed f32
+    # factor + refine-loop temps, estimated at ~8x the f64 input (XLA
+    # double-buffers the while-loop carries)
     def guard_skips(size, batch):
         return batch * size * size * 8 * 8 / 1e9 > args.max_cell_gb
 
-    # merge with a prior partial run (cells are independent; chunked
-    # invocations stay inside the watchdog budget).  Guard-skipped cells
+    # merge with a prior partial run (cells are independent, so a sweep
+    # can be split over several invocations).  Guard-skipped cells
     # will NOT be re-measured below, so they must not count as
     # "requested" — otherwise a re-run that includes a too-large cell
     # silently deletes its prior measurement from the artifact
@@ -123,10 +120,10 @@ def main():
                 jnp.einsum("bij,bj->bi", A, x) - b, axis=-1
             ) / jnp.linalg.norm(b, axis=-1)
             max_relres = float(relres.max())
-            # the f32 factor bounds refinement at large n (measured ~1e-7
-            # at 2048); within the solver that level is re-refined by the
-            # outer Newton anyway, so gate on a size-aware envelope and
-            # report the measured residual in the artifact
+            # the f32 factor bounds refinement at large n; within the
+            # solver that level is re-refined by the outer Newton anyway,
+            # so gate on a size-aware envelope and report the measured
+            # residual in the artifact
             tol = 1e-8 if size <= 1024 else 1e-6
             assert max_relres < tol, (size, batch, max_relres)
 

@@ -14,8 +14,8 @@ weak item #3):
 - both artifacts record the iteration inflation 1e-6 -> 1e-8 so the
   tolerance cost is explicit.
 
-Usage (TPU): python benchmarks/bench_tol8.py [--problems rosenbrock hs71]
-Writes artifacts/r5_rosenbrock_tol8.json and artifacts/r5_hs_tol8.json.
+Usage: python benchmarks/bench_tol8.py [--problems rosenbrock hs71]
+Writes artifacts/rosenbrock_tol8.json and artifacts/hs71_tol8.json.
 """
 
 import argparse
@@ -154,7 +154,7 @@ def main():
                 else None
             ),
         }
-        write_artifact(f"r5_{name}_tol8.json", payload)
+        write_artifact(f"{name}_tol8.json", payload)
         print(json.dumps(payload), flush=True)
 
 

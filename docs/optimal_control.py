@@ -4,15 +4,12 @@ Solves the discretized pendulum swing-up NLP.  The interleaved
 formulation orders variables per stage ``(theta_k, omega_k, u_k)`` so the
 Lagrangian Hessian is 3x3-block-diagonal, which the Schur step solver
 exploits: the primal block is factored as a batch of tiny LDL^T
-factorizations on the MXU and only the dense dual Schur complement needs
-a full factorization — here delegated to the Pallas mixed-precision
-kernel (f32 factor + f64 iterative refinement).
+factorizations and only the dual Schur complement needs a real
+factorization — here block-cyclic reduction with a dense root on the
+mixed-precision tier (``LinearSolverType.PallasLDLT``: plain-XLA f32
+factor + f64 iterative refinement).
 
-On a TPU v5e the matrix-free staged tier below solves a horizon-256
-instance (770 variables, 514 constraints) in 0.058 s vs the reference's
-sparse SuperLU on CPU at 0.112 s, and wins at every horizon measured —
-N=4096 (KKT 20484) takes 0.158 s vs the reference's 1.607 s
-(``benchmarks/artifacts/r3_control*.json``).
+Solve times on the GPU: not measured yet.
 """
 
 import numpy as np

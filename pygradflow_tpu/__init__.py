@@ -1,10 +1,11 @@
-"""pygradflow_tpu: a TPU-native sequential-homotopy NLP solver in JAX.
+"""pygradflow_tpu: a sequential-homotopy NLP solver in JAX.
 
 A from-scratch reimplementation of the capabilities of PyGradFlow
 (sequential homotopy method of Potschka & Bock, Math. Prog. 187, 2021) with
-a TPU-first architecture: autodiff derivatives, dense masked active-set
-algebra with static shapes, the homotopy loop under ``lax.while_loop``,
-instance batching via ``vmap`` and multi-chip sharding via ``shard_map``.
+an accelerator-first architecture: autodiff derivatives, dense masked
+active-set algebra with static shapes, the homotopy loop under
+``lax.while_loop``, instance batching via ``vmap`` and multi-device
+sharding via ``shard_map``.
 
 Double precision is the numerical default of the algorithm (matching the
 reference); importing this package enables JAX x64 unless the environment
@@ -22,13 +23,15 @@ if not os.environ.get("PYGRADFLOW_TPU_NO_X64"):
 # Persistent compilation cache: the homotopy loop is one large compiled
 # program per (shape, params) configuration; caching it across processes
 # turns repeated runs/tests from minutes of XLA work into milliseconds.
-_cache_dir = os.environ.get(
-    "PYGRADFLOW_TPU_CACHE", os.path.expanduser("~/.cache/pygradflow_tpu_xla")
+# JAX reads JAX_COMPILATION_CACHE_DIR itself when it is set; otherwise the
+# cache lives at one fixed path inside the checkout, so every process run
+# from it finds what the others compiled.
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
 )
-if _cache_dir and _cache_dir != "0":
-    os.makedirs(_cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 from .params import (  # noqa: E402,F401
     ActiveSetType,

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .jit import jit
 from .params import Params
 from .problem import Problem
 
@@ -123,7 +124,7 @@ def make_fns(problem: Problem, params: Params) -> Fns:
     n = problem.num_vars
     m = problem.num_cons
 
-    maybe_jit = (lambda f: f) if _is_parametric(problem) else jax.jit
+    maybe_jit = (lambda f: f) if _is_parametric(problem) else jit
 
     @maybe_jit
     def obj(x):

@@ -13,7 +13,7 @@ the residual
 and its scaled-by-:math:`\\lambda` variant (better conditioned for small
 :math:`\\Delta t`, reference ``implicit_func.py:202-294``).
 
-TPU-first design: the active set is a boolean vector, the projection
+Accelerator-first design: the active set is a boolean vector, the projection
 derivative a row mask, and the Newton matrices dense ``(n+m, n+m)`` blocks
 assembled with ``jnp.where`` — shapes are static under jit, no index
 gathers.  Active-set "reduction" is realized by substituting identity rows

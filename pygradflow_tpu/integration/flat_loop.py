@@ -219,7 +219,7 @@ def make_flat_loop(cfg, fns, lb, ub, params):
             hist_h=jnp.zeros((), dt),
             # total work units (step attempts + bisection probes) — the
             # lane's share of the lockstep critical path; max over lanes
-            # x ms/unit = the batched wall (see benchmarks/probe_flat_cost)
+            # x time per unit approximates the batched wall
             units=zero_i,
         )
         return _transition(c)

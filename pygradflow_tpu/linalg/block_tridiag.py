@@ -7,11 +7,11 @@ couples at most two adjacent stages), the dual Schur complement
 (q, q) block per stage.  A dense factorization costs O(M^3 q^3) and is
 what the reference's sparse LU implicitly avoids; this module restores
 the O(M q^3) sequential factorization as two ``lax.scan`` sweeps —
-latency-bound on TPU (M tiny block ops) but asymptotically linear, which
-beats the dense MXU path once M is a few hundred.
+latency-bound (M tiny block ops) but asymptotically linear, where the
+dense factorization is cubic.
 
 The blocks are factored with the unrolled dense LDL^T (``ldlt.py``,
-n <= 16 unrolls completely), so everything stays f64-capable on TPU.
+n <= 16 unrolls completely) in the working precision.
 
 Matrix representation: ``diag`` (M, q, q) diagonal blocks and ``upper``
 (M-1, q, q) super-diagonal blocks; symmetry is assumed (the subdiagonal
@@ -19,8 +19,8 @@ is ``upper[i].T``), as holds for any Schur complement of a symmetric
 KKT system.
 
 Reference counterpart: the role of HSL MA57 / SuperLU on banded KKT
-systems (``linear_solver/lu_solver.py``, ``ma57_solver.py``) — built
-TPU-native instead of bound from Fortran.
+systems (``linear_solver/lu_solver.py``, ``ma57_solver.py``) — written
+in JAX instead of bound from Fortran.
 """
 
 import os
@@ -109,12 +109,11 @@ def dense_to_btd(S, q):
 
 
 # ----------------------------------------------------------------------
-# Block cyclic reduction — the log-depth, batched variant for TPU
+# Block cyclic reduction — the log-depth, batched variant
 # ----------------------------------------------------------------------
 #
-# The Thomas sweeps above are O(M) *sequential* steps; on TPU each tiny
-# scan step costs ~50us of loop latency, so M=257 already means ~40ms per
-# solve.  Cyclic reduction eliminates all odd-indexed blocks at once per
+# The Thomas sweeps above are O(M) *sequential* steps, each a tiny op
+# paying loop latency.  Cyclic reduction eliminates all odd-indexed blocks at once per
 # level (a batched (M/2, q, q) LDL^T + a few batched matmuls) and recurses
 # on the even blocks: log2(M) levels of fully-batched work instead of M
 # sequential steps.  Classic reference: Buzbee, Golub & Nielson (1970).
@@ -159,18 +158,19 @@ class BCRFactor:
 
 
 # stop the reduction once this few block-rows remain and solve the rest as
-# ONE dense (m_base*q) LDL^T: each BCR level costs ~1 ms of small-op
-# latency on TPU regardless of width, so the last log2(BCR_BASE) levels
-# are pure overhead next to a tiny unrolled dense factor (8*2=16 unrolls
-# completely in ldlt_factor)
+# ONE dense (m_base*q) LDL^T: each BCR level is a fixed set of small ops
+# whatever its width, so the last log2(BCR_BASE) levels cost more than a
+# tiny unrolled dense factor (8*2=16 unrolls completely in ldlt_factor).
+# Chosen on the earlier accelerator, not yet re-derived on the GPU.
 BCR_BASE = 8
 
 # the hybrid regime (bcr_factor(..., base=..., root_lin=...)): stop after
 # just a few levels and hand the remaining dense (base*q) system to the
-# Pallas f32 tier — each level costs a fixed ~10 small XLA ops of launch
-# latency while the MXU factors a 512-dense block in ~2 ms, so a shallow
-# reduction + one big dense root beats both the deep reduction (level
-# latency) and the full dense factor (O(m^3)).  Env-tunable so the
+# mixed-precision f32 tier — each level is a fixed ~10 small XLA ops
+# while one dense root is a few GEMM-rich kernels, so a shallow reduction
+# + one big dense root can beat both the deep reduction (level latency)
+# and the full dense factor (O(m^3)).  Chosen on the earlier accelerator,
+# not yet re-derived on the GPU.  Env-tunable so the
 # control benchmark can sweep the level-count/root-size tradeoff per
 # subprocess (benchmarks/bench_control.py)
 BCR_HYBRID_BASE = int(os.environ.get("PGF_BCR_HYBRID_BASE", 256))
@@ -202,7 +202,7 @@ def bcr_factor(diag, upper, base: int = BCR_BASE, root_lin=None) -> BCRFactor:
     blocks (keeps negative definiteness, changes nothing else).
 
     ``base`` stops the reduction once that few block-rows remain;
-    ``root_lin`` (a dense LinearSolver, e.g. the Pallas f32 tier) factors
+    ``root_lin`` (a dense LinearSolver, e.g. the mixed f32 tier) factors
     the remaining dense (base*q) system — the hybrid shallow-BCR regime
     for long horizons.  Falls back to the unrolled/blocked LDL^T root
     when ``root_lin`` is None or the base size doesn't fit its tiling."""

@@ -1,22 +1,22 @@
-"""Blocked LDL^T factorization: panel rank-1 sweeps + MXU trailing updates.
+"""Blocked LDL^T factorization: panel rank-1 sweeps + GEMM trailing updates.
 
 The unblocked factorization (``ldlt.py``) performs n sequential rank-1
-updates — O(n^2) VPU work per step and no MXU utilization.  This blocked
-right-looking variant factors NB-column panels with rank-1 sweeps restricted
-to the panel, then applies the trailing Schur update for the whole panel as
-one (n, NB) x (NB, n) matmul on the MXU:
+updates — O(n^2) elementwise work per step and no matrix products.  This
+blocked right-looking variant factors NB-column panels with rank-1 sweeps
+restricted to the panel, then applies the trailing Schur update for the
+whole panel as one (n, NB) x (NB, n) matmul:
 
     A[k+NB:, k+NB:] -= L_panel * D_panel * L_panel^T
 
 Shapes stay static by always operating on full-height panels with masks;
 the panel position enters through ``lax.dynamic_slice``.  FLOP count is the
-usual n^3/3 with the dominant term on the MXU, which is the speed-of-light
-shape for TPU (the same structure the Pallas kernel pins into VMEM).
+usual n^3/3 with the dominant term in the GEMMs.
 """
 
 import jax
 import jax.numpy as jnp
 
+# panel width; chosen on the earlier accelerator, not yet re-derived on the GPU
 DEFAULT_BLOCK = 128
 
 
@@ -65,7 +65,7 @@ def ldlt_factor_blocked(mat, block: int = DEFAULT_BLOCK):
 
         a = jax.lax.fori_loop(0, block, col_body, a)
 
-        # ---- trailing Schur update with one MXU matmul ----
+        # ---- trailing Schur update with one matmul ----
         # L_panel: full-height block of L columns [base, base+block)
         lpanel = jax.lax.dynamic_slice(a, (0, base), (n_pad, block))
         dvals = jax.lax.dynamic_slice(jnp.diagonal(a), (base,), (block,))

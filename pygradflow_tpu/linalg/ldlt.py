@@ -1,6 +1,6 @@
 """Dense LDL^T factorization with inertia extraction, pure JAX.
 
-TPU-native replacement for the reference's indefinite native factorizations
+JAX replacement for the reference's indefinite native factorizations
 (MA57 ``ma57_solver.py:76-79``, MUMPS ``mumps_solver.py:81-82``, SSIDS),
 whose key extra over LU is the inertia query used for inertia correction
 (``symmetric_step_solver.py:146-153``).
@@ -15,8 +15,9 @@ doubled lambda — the same recovery the reference applies on a failed native
 factorization.
 
 The factorization loop is a ``lax.fori_loop`` of rank-1 Schur updates:
-each step is O(n^2) vector work on the VPU and batches cleanly under vmap.
-A blocked Pallas variant (MXU outer products) lives in ``pallas_ldlt.py``.
+each step is O(n^2) elementwise work and batches cleanly under vmap.
+Blocked variants with GEMM trailing updates live in ``blocked_ldlt.py``
+(f64) and ``mixed_ldlt.py`` (f32 with f64 refinement).
 """
 
 import jax
@@ -55,9 +56,8 @@ def ldlt_solve(fact, rhs):
 
     ``rhs`` may be a vector ``(..., n)`` or a matrix ``(..., k, n)`` of k
     independent right-hand sides (system dimension LAST either way).
-    Implemented with XLA's blocked TriangularSolve (f64-supported on TPU,
-    unlike LuDecomposition), which is much faster than sequential
-    substitution sweeps for large n."""
+    Implemented with XLA's blocked TriangularSolve rather than sequential
+    substitution sweeps."""
     import jax.scipy.linalg as jsl
 
     n = fact.shape[-1]

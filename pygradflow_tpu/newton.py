@@ -9,7 +9,7 @@ Counterparts of the reference's four Newton variants
 ``carry`` holds whatever the variant freezes (factorization, derivatives),
 making the trade-offs explicit in data: Simplified factors once in ``init``
 and only back-solves in ``step``; Full refactors every ``step``; ActiveSet
-keeps derivatives frozen but reassembles when the active set moves (on TPU
+keeps derivatives frozen but reassembles when the active set moves (here
 reassembly is cheap dense masking, so it simply refactors each step —
 detecting "no change" would cost a sync); Globalized adds an Armijo line
 search on the residual merit under ``lax.while_loop``.

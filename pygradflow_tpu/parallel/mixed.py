@@ -1,13 +1,11 @@
 """Mixed-precision batched sweeps: f32 bulk loop + f64 polish.
 
-On this TPU f64 is software-emulated: the honest like-for-like batched
-HS71 ratio is 5.5x f32-over-f64 at the same tolerance (RESULTS.md).  But
 f32 alone only reaches ~1e-4 KKT residuals.  The KKT linear-algebra tier
-already proves the classic escape (f32 factor + f64 refinement reaches
-1e-10); this module applies the same pattern at the HOMOTOPY-LOOP level:
+uses the classic escape (f32 factor + f64 refinement reaches 1e-10); this
+module applies the same pattern at the HOMOTOPY-LOOP level:
 
 1. run the whole batched homotopy loop in f32 to ``f32_tol`` (default
-   1e-4) — ~5x cheaper per iteration, covers the bulk of the distance;
+   1e-4), which covers the bulk of the distance;
 2. promote every lane's (x, y) to f64 and warm-start the f64 batched
    loop from there to the real ``params.opt_tol`` (1e-6/1e-8) — a few
    polish iterations instead of the full trajectory.  Lanes whose f32

@@ -1,7 +1,7 @@
 """Multi-start global optimization helper.
 
-Nonconvex NLPs converge to different KKT points from different starts; on
-TPU the natural tool is the batched solver — solve every start in lockstep
+Nonconvex NLPs converge to different KKT points from different starts; the
+natural tool is the batched solver — solve every start in lockstep
 and pick the best optimal one.  (No reference counterpart; the batched
 sweep makes it nearly free.)
 """

@@ -1,15 +1,15 @@
 """Distributed Schur-complement KKT solve over a device mesh.
 
-The multi-chip form of ``step/schur.py`` (BASELINE.json: "psum reductions
-for the Schur complement over ICI"): the block-diagonal primal blocks and
+The multi-device form of ``step/schur.py`` (psum reductions for the
+Schur complement): the block-diagonal primal blocks and
 the matching Jacobian column slices are sharded over a 1-D mesh axis, each
 device factors its blocks and computes its local contribution
 ``J_k A_k^{-1} J_k^T``; one ``psum`` assembles the dense dual Schur
 complement on every device, the (small) dual solve is replicated, and the
-primal back-substitution is local again — the only cross-chip traffic is
+primal back-substitution is local again — the only cross-device traffic is
 the two m×m / m-vector reductions.
 
-For KKT systems whose primal dimension exceeds one chip's memory this is
+For KKT systems whose primal dimension exceeds one device's memory this is
 the scaling path; it is validated against the single-device solver on the
 CPU simulation mesh.
 """
@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..jit import jit
 from ..linalg.ldlt import ldlt_factor, ldlt_solve
 
 AXIS = "blocks"
@@ -50,7 +51,7 @@ def distributed_schur_solve(
 
     def solve_kernel(h_blocks, jac_b, rhs_xb, m22, rhs_y):
         # explicit local block inverses: applications become batched
-        # GEMMs on the MXU instead of b-wide substitution sweeps
+        # GEMMs instead of b-wide substitution sweeps
         from ..step.schur import _block_inverses
 
         inv = _block_inverses(h_blocks)
@@ -63,7 +64,7 @@ def distributed_schur_solve(
         s_local = jnp.einsum("kmb,knb->mn", jac_b, ainv_jt)
         jaz_local = jnp.einsum("kmb,kb->m", jac_b, az)
 
-        # ICI collective: assemble S and J A^{-1} rhs_x on every device
+        # collective: assemble S and J A^{-1} rhs_x on every device
         s_sum = jax.lax.psum(s_local, AXIS)
         jaz = jax.lax.psum(jaz_local, AXIS)
 
@@ -78,7 +79,7 @@ def distributed_schur_solve(
     spec_blocks = P(AXIS)
     spec_rep = P()
 
-    out = jax.jit(
+    out = jit(
         jax.shard_map(
             solve_kernel,
             mesh=mesh,

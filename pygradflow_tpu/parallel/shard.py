@@ -1,13 +1,15 @@
-"""Multi-chip instance sweeps: ``shard_map`` over a device mesh.
+"""Multi-device instance sweeps: ``shard_map`` over a device mesh.
 
-The TPU-native counterpart of the reference's multiprocessing benchmark
-fan-out (``runners/runner.py:107-153``), scaled past one chip: the instance
-batch is sharded along a 1-D mesh axis, every device advances its shard of
-instances in lockstep (vmapped solver loop), and the only cross-chip
-communication is the convergence reduction — a ``psum`` of per-shard
-running-lane counts over ICI deciding when the chunk loop may stop.
+The counterpart of the reference's multiprocessing benchmark fan-out
+(``runners/runner.py:107-153``), scaled past one device: the instance
+batch is sharded along a 1-D mesh axis over ``jax.devices()`` (the GPUs
+of one host, all joined to each other by NVLink, so the mesh needs no
+topology), every device advances its shard of instances in lockstep
+(vmapped solver loop), and the only cross-device communication is the
+convergence reduction — a ``psum`` of per-shard running-lane counts
+deciding when the chunk loop may stop.
 
-Works identically on a real pod slice and on the CPU simulation mesh
+Works identically on GPUs and on the CPU simulation mesh
 (``XLA_FLAGS=--xla_force_host_platform_device_count=N``).
 """
 
@@ -18,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..jit import jit
 from ..params import Params
 from ..problem import Problem
 from ..status import RUNNING, SolverStatus
@@ -54,7 +57,7 @@ class ShardedSolver:
             def cond(carry):
                 states, i = carry
                 local_running = jnp.any(states.status == RUNNING).astype(jnp.int32)
-                # ICI collective: all shards agree on continuation
+                # collective: all shards agree on continuation
                 global_running = jax.lax.psum(local_running, AXIS)
                 return jnp.logical_and(i < chunk, global_running > 0)
 
@@ -84,8 +87,6 @@ class ShardedSolver:
         # the jitted shard_map is built ONCE per (states, data) structure:
         # rebuilding it per solve() call creates a fresh closure each time,
         # which defeats jax's jit cache and recompiles on EVERY solve
-        # (measured 5x on the 10k-instance scenario sweep: 2542 -> 12600+
-        # solves/s after caching)
         self._runs = {}
 
     def solve(self, x0, y0=None, data=None) -> BatchResult:
@@ -130,7 +131,7 @@ class ShardedSolver:
         )
         run = self._runs.get(key)
         if run is None:
-            run = jax.jit(
+            run = jit(
                 jax.shard_map(
                     self._shard_chunk,
                     mesh=self.mesh,

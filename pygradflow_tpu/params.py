@@ -2,7 +2,7 @@
 
 Mirrors the configuration surface of the reference solver
 (``pygradflow/params.py:197-303``): one serializable dataclass holding every
-knob, nine enums, YAML round-trip, and string->enum coercion.  The TPU build
+knob, nine enums, YAML round-trip, and string->enum coercion.  This build
 adds a handful of knobs controlling jit chunking, filter capacity (penalty
 filters must be bounded to stay jit-able) and path-collection capacity.
 """
@@ -52,7 +52,7 @@ class StepSolverType(Enum):
     Standard = auto()
     """Raw unsymmetric implicit-function Jacobian ``[[I + dt P'H, dt P'J^T], [-dt J, I]]``."""
     Extended = auto()
-    """Scaled, permuted formulation (on TPU realized identically to Asymmetric)."""
+    """Scaled, permuted formulation (realized identically to Asymmetric here)."""
     Symmetric = auto()
     """Scaled symmetric saddle-point formulation (supports inertia correction)."""
     Asymmetric = auto()
@@ -67,17 +67,21 @@ class LinearSolverType(Enum):
     """Dense/iterative linear-algebra backend for the KKT solve.
 
     The reference binds native libraries (SuperLU/CHOLMOD/MA57/MUMPS/SSIDS,
-    ``pygradflow/linear_solver/``); here each maps to a TPU-native tier.
+    ``pygradflow/linear_solver/``); here each maps to a pure-JAX tier.
     """
 
     LU = auto()
-    """Dense LU factorization (XLA); the default, maps reference LUSolver."""
+    """Dense LU factorization (pure-JAX partial-pivot LU); the default, maps
+    reference LUSolver."""
     Cholesky = auto()
     """Dense Cholesky; fails (rejecting the step) on non-posdef matrices."""
     LDLT = auto()
     """Dense blocked LDL^T with inertia extraction (maps MA57/MUMPS/SSIDS)."""
     PallasLDLT = auto()
-    """Blocked LDL^T Pallas TPU kernel with inertia extraction."""
+    """Mixed-precision LDL^T with inertia extraction: plain-XLA f32
+    factorization (``linalg/mixed_ldlt.py``) + f64 iterative refinement.
+    The name is kept for existing configurations; no Pallas kernel is
+    involved."""
     MINRES = auto()
     """Iterative MINRES (symmetric step solver only), pure JAX while_loop."""
     GMRES = auto()
@@ -124,7 +128,7 @@ class IntegrationMethod(Enum):
 
     The reference delegates to scipy BDF
     (``pygradflow/integration/integration_solver.py:278-285``); the
-    TPU-native engine ships three fully jitted one-step methods."""
+    engine here ships three fully jitted one-step methods."""
 
     SDIRK4 = auto()
     """L-stable 5-stage SDIRK of order 4 (Hairer & Wanner II, Table 6.5,
@@ -232,10 +236,12 @@ class Params:
 
     inertia_correction: bool = False
 
-    # --- TPU-specific knobs (no reference counterpart) -------------------
+    # --- jit-specific knobs (no reference counterpart) -------------------
     jit_chunk: int = 64
     """Outer iterations executed per jit invocation (wall-clock/time-limit
-    and display callbacks happen at chunk boundaries)."""
+    and display callbacks happen at chunk boundaries).  The default was
+    sized for the earlier accelerator's host round trip and is not yet
+    re-derived on the GPU."""
 
     filter_capacity: int = 64
     """Fixed capacity of penalty-filter ring buffers: jit requires static

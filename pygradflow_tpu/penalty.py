@@ -10,7 +10,7 @@ The filter strategies maintain a Pareto front; the reference keeps it as an
 unbounded Python list (``penalty.py:186-238`` — with a note that it "could
 be logarithmic").  Under jit the front lives in a fixed-capacity buffer
 (``params.filter_capacity``) with masked dominance checks — an O(capacity)
-vectorized sweep on the VPU, replacing the reference's O(len) Python loop.
+vectorized sweep, replacing the reference's O(len) Python loop.
 """
 
 from typing import Any, NamedTuple

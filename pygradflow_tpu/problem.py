@@ -7,8 +7,8 @@ come from autodiff: a subclass only defines ``obj(x)`` (and optionally
 Hessians are derived with ``jax.grad`` / ``jax.jacfwd``.  Hand-written
 derivative methods still override the autodiff defaults (escape hatch).
 
-All linear algebra is dense: on TPU the KKT systems are solved as dense
-blocked systems on the MXU, so Jacobians/Hessians are dense ``(m, n)`` /
+All linear algebra is dense: the KKT systems are solved as dense
+blocked systems, so Jacobians/Hessians are dense ``(m, n)`` /
 ``(n, n)`` arrays rather than scipy sparse matrices.
 """
 

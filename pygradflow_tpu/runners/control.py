@@ -5,7 +5,7 @@ A pendulum swing-up style problem: minimize quadratic tracking + control
 cost subject to explicit-Euler discretized nonlinear dynamics (equality
 constraints) and control bounds.  Variables are the stacked state
 trajectory and controls; the KKT systems are large and block-banded — the
-workload for the blocked/Pallas LDL^T path.
+workload for the blocked and mixed-precision LDL^T paths.
 """
 
 import jax.numpy as jnp

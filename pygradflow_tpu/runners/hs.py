@@ -1,7 +1,7 @@
 """Native Hock-Schittkowski test suite.
 
 The reference benchmarks against CUTEst via the Fortran pycutest binding
-(``runners/cutest_runner.py``); on TPU the equivalent is a pure-JAX
+(``runners/cutest_runner.py``); the equivalent here is a pure-JAX
 collection of the classical Hock-Schittkowski problems (standard
 formulations from the H&S book) with autodiff derivatives — per the
 build plan (SURVEY.md §7, stage 8).

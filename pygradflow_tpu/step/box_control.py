@@ -16,7 +16,7 @@ is below 1e-6 (halving lambda), else rejects doubling lambda.
 
 The reference offers three interchangeable inner solvers (Ipopt, scipy
 TNC — noted unreliable in the reference, ``box_control.py:271-274`` — and
-the projected-Newton solver it actually uses); on TPU the projected-Newton
+the projected-Newton solver it actually uses); here the projected-Newton
 path stands in for all three.  The Ipopt-based ``OptimizingController``
 (reference ``opti_control.py``), which solves the same subproblem in
 primal-dual form, has its own independent counterpart here: the jitted

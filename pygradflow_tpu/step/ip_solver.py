@@ -11,8 +11,8 @@ The reference hands this subproblem to Ipopt with an L-BFGS Hessian
 whose optimum is the implicit-Euler step of the augmented Lagrangian
 flow; the constraint multiplier nu is the new dual iterate.
 
-This jitted TPU-native version runs a full primal-dual interior-point
-iteration instead (no cyipopt on TPU, and no L-BFGS needed — the exact
+This jitted version runs a full primal-dual interior-point
+iteration instead (no cyipopt under jit, and no L-BFGS needed — the exact
 Hessian comes from autodiff):
 
 - explicit bound duals ``zl, zu >= 0`` with perturbed complementarity
@@ -26,7 +26,7 @@ Hessian comes from autodiff):
 
   with ``H = lag_hess(x, rho c + nu) + rho J^T J`` and
   ``Sigma = zl/(x-lb) + zu/(ub-x)`` — factored by the configured dense
-  backend (LDL^T by default, MXU-blocked);
+  backend (LDL^T by default, blocked);
 - fraction-to-boundary line step, monotone Fiacco-McCormick barrier
   reduction (``mu <- mu/5`` once the inner KKT error drops below mu).
 

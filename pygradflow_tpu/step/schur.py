@@ -9,7 +9,7 @@ scaled saddle system
 
 is solved by eliminating the primal block: with ``A = H + lambda I`` block
 diagonal, ``A^{-1}`` is a batch of small dense factorizations (vmapped
-LDL^T on the MXU), the dual Schur complement
+LDL^T), the dual Schur complement
 
     S = -c I - J A^{-1} J^T       (m x m, dense)
 
@@ -18,8 +18,7 @@ more.  Active-set masking uses the identity-row/column trick *within*
 blocks, so shapes stay static.
 
 The distributed variant (``parallel/schur.py``) shards the blocks over a
-device mesh and assembles ``S`` with a ``psum`` over the block axis — the
-ICI-collective Schur assembly of BASELINE.json.
+device mesh and assembles ``S`` with a ``psum`` over the block axis.
 
 Enabled by ``Params(step_solver_type=StepSolverType.Schur,
 schur_block_size=b)`` where the (transformed) problem's Hessian is block
@@ -64,10 +63,9 @@ def _block_inverses(blocks):
     unrolled LDL^T (the blocks are lambda-shifted Hessian blocks or
     identity rows — well conditioned by construction).
 
-    Rationale: batched *substitution* solves with b=3 run 3-wide on the
-    128-lane VPU (~2% utilization) and dominate the factor cost at long
-    horizons; with explicit inverses every application becomes a batched
-    GEMM on the MXU."""
+    Rationale: batched *substitution* solves with b=3 are 3-wide sequential
+    sweeps; with explicit inverses every application becomes one batched
+    GEMM."""
     b = blocks.shape[-1]
     eye = jnp.eye(b, dtype=blocks.dtype)
 
@@ -95,7 +93,7 @@ def schur_def(
 ) -> StepSolverDef:
     """``lin`` is the configured dense LinearSolver for the dual Schur
     complement, or None for the default f64 LDL^T path.  Passing the
-    ``PallasLDLT`` tier factors ``S`` in f32 on the MXU with f64
+    ``PallasLDLT`` (mixed-precision) tier factors ``S`` in f32 with f64
     iterative refinement on the back-solve.
 
     ``dual_block`` (``params.schur_dual_block_size``): when the problem's
@@ -103,17 +101,18 @@ def schur_def(
     stages), ``S`` is symmetric block *tridiagonal* with (dual_block,
     dual_block) blocks and is factored in O(m) with the block-Thomas
     sweeps of ``linalg/block_tridiag.py`` instead of O(m^3) dense —
-    the TPU-native equivalent of the reference's sparse LU on banded
+    the JAX equivalent of the reference's sparse LU on banded
     optimal-control KKT systems."""
     b = int(block_size)
     has_pallas = lin is not None and lin.name == "pallas_ldlt"
     use_lin = dual_block is None and has_pallas
     use_btd = dual_block is not None
-    # mixed precision: f32 block inverses / Schur assembly / elimination
-    # (f64 einsums and GEMMs on TPU lower to ~8-pass bf16 emulation loops
-    # that dominate the factor cost), f64 accuracy recovered by iterative
-    # refinement on the masked saddle system in solve().  Applied to both
-    # Pallas-backed dual tiers: dense (use_lin) and block-tridiag (use_btd)
+    # mixed precision: f32 block inverses / Schur assembly / elimination,
+    # f64 accuracy recovered by iterative refinement on the masked saddle
+    # system in solve().  Applied to both dual tiers that use the
+    # mixed-precision LinearSolver: dense (use_lin) and block-tridiag
+    # (use_btd).  Every f32 product is traced at full precision
+    # (``jit.full_f32``)
     mixed = has_pallas and (use_lin or use_btd)
 
     def factor(func: impl.StepFunc, H, J, active, rho):
@@ -143,7 +142,7 @@ def schur_def(
         if use_btd:
             # band-only Schur assembly: with stage-local constraints only
             # the tridiagonal blocks of S are nonzero, so assembling the
-            # dense (m, m) product Jm @ ainv_jt would waste O(m^2 n) MXU
+            # dense (m, m) product Jm @ ainv_jt would waste O(m^2 n)
             # work on known zeros.  Build the (M, q, q) diagonal and
             # (M-1, q, q) super-diagonal bands directly: O(M q^2 n).
             from ..linalg.block_tridiag import BCR_HYBRID_BASE, bcr_factor
@@ -157,9 +156,8 @@ def schur_def(
                 lamb * fact_s, work_dtype
             ) * jnp.eye(q, dtype=work_dtype)
             upper = -jnp.einsum("rqn,nrp->rqp", jb[:-1], ab[:, 1:])
-            # hybrid shallow reduction + Pallas dense root when the f32
-            # tier is configured: each BCR level is ~10 launch-latency
-            # small ops while the MXU eats a 512-dense root in ~2 ms
+            # hybrid shallow reduction + dense f32 root when the mixed
+            # tier is configured (see BCR_HYBRID_BASE)
             s_fact = bcr_factor(
                 diag,
                 upper,
@@ -173,8 +171,8 @@ def schur_def(
             s_fact = lin.factor(S)
         else:
             S = _lower_block(m, lamb, rho, dtype) - Jm @ ainv_jt
-            # dense dual factorization: blocked (MXU) beats the rank-1
-            # sweep once m is a few hundred
+            # dense dual factorization: blocked (GEMM trailing updates)
+            # above a few hundred rows, the rank-1 sweep below
             s_fact = ldlt_factor_blocked(S) if m > 192 else ldlt_factor(S)
 
         return Factorization(
@@ -214,7 +212,7 @@ def schur_def(
             if use_btd:
                 from ..linalg.block_tridiag import bcr_solve
 
-                # raw f32 root back-solve under the Pallas tier: the
+                # raw f32 root back-solve under the mixed tier: the
                 # outer saddle refinement recovers f64
                 root_solve = (
                     (lambda fct, b_: lin.solve(fct, b_, iters=0))
@@ -253,8 +251,7 @@ def schur_def(
             # the f64 saddle system (-> ~1e-11, well past the 1e-8
             # trajectory-parity bar; verified in tests/test_schur.py).
             # The M11 residual term rides the block structure: a batched
-            # (nb, b, b) GEMM instead of a dense n^2 f64 matvec (f64
-            # matmuls are emulated multi-pass on TPU)
+            # (nb, b, b) GEMM instead of a dense n^2 f64 matvec
             sx, sy = inner(rhs_x, rhs_y)
             for _ in range(1):
                 r_x = rhs_x - _blocks_apply(sf.m11_blocks, sx, b) - jm64.T @ sy

@@ -36,7 +36,7 @@ directly by autodiff *probes* instead of slicing dense derivatives:
 Assembly, masking, the dual Schur band, and the entire back-substitution
 are then batched ``(N, small, small)`` einsums; the band is factored by
 the hybrid block-cyclic-reduction of ``linalg/block_tridiag.py`` (shallow
-reduction + one MXU-sized dense root on the Pallas f32 tier, f64 recovered
+reduction + one dense root on the mixed-precision f32 tier, f64 recovered
 by saddle-system iterative refinement exactly as in ``step/schur.py``).
 Per-iteration cost drops from O(n^2) memory traffic to O(N).
 
@@ -142,7 +142,7 @@ def _extract_stage_data(fns: Fns, it: Iterate, b: int, q: int):
 def schur_staged_def(lin, fns: Fns, block_size: int, dual_block: int) -> StepSolverDef:
     """Matrix-free staged Schur ``StepSolverDef``.
 
-    ``lin`` is the Pallas f32 dense tier for the BCR root (or None for
+    ``lin`` is the mixed-precision f32 dense tier for the BCR root (or None for
     pure f64 — CPU tests / small problems); mixed precision + saddle
     refinement mirror ``schur_def`` and were verified to reproduce its
     trajectories (``tests/test_schur_staged.py``).

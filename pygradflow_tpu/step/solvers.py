@@ -5,7 +5,7 @@ Counterparts of the reference's four step solvers
 the inactive variables is realized by substituting identity rows/columns
 (the reference's own Asymmetric in-place trick,
 ``asymmetric_step_solver.py:38-104``) rather than slicing, so every
-formulation assembles a dense ``(n+m, n+m)`` system solvable on the MXU and
+formulation assembles a dense ``(n+m, n+m)`` system with static shape,
 batchable under vmap.
 
 Formulations (lambda = 1/dt, fact = 1/(1 + lambda*rho)):

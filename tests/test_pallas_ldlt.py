@@ -1,17 +1,20 @@
-"""Pallas blocked-LDL^T kernel tests (interpret mode on CPU; the compiled
-path is exercised on TPU by the benchmark)."""
+"""The mixed-precision LDL^T tier (``LinearSolverType.PallasLDLT``): plain
+f32 factorization (``linalg/mixed_ldlt.py``) + f64 refinement + inertia,
+and the f64 blocked factorization it is checked against."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from pygradflow_tpu.linalg import linear_solver
 from pygradflow_tpu.linalg.blocked_ldlt import ldlt_factor_blocked
 from pygradflow_tpu.linalg.ldlt import (
     ldlt_factor,
     ldlt_num_neg_eigvals,
-    ldlt_solve,
 )
-from pygradflow_tpu.linalg.pallas_ldlt import pallas_ldlt_factor_f32, refine_solve
+from pygradflow_tpu.linalg.mixed_ldlt import ldlt_factor_f32, refine_solve
+from pygradflow_tpu.params import LinearSolverType
 
 rng = np.random.default_rng(7)
 
@@ -21,6 +24,17 @@ def _saddle(n, m):
     K = H @ H.T + n * np.eye(n)
     J = rng.standard_normal((m, n))
     return np.block([[K, J.T], [J, -0.1 * np.eye(m)]])
+
+
+def _backward_error(A, x, b):
+    """Normwise backward error ||Ax - b|| / (||A|| ||x||), inf-norms."""
+    r = A @ x - b
+    return np.abs(r).max() / (np.abs(A).sum(axis=-1).max() * np.abs(x).max())
+
+
+def _split(size):
+    n = (3 * size) // 4
+    return n, size - n
 
 
 @pytest.mark.parametrize("n,m", [(40, 12), (100, 28)])
@@ -35,200 +49,97 @@ def test_blocked_matches_unblocked(n, m):
     )
 
 
-def test_pallas_interpret_factor_and_refine():
-    A = _saddle(96, 32)
-    packed = pallas_ldlt_factor_f32(jnp.asarray(A), interpret=True)
-
-    b = rng.standard_normal(A.shape[0])
-    x = np.asarray(refine_solve(packed, jnp.asarray(A), jnp.asarray(b)))
-    np.testing.assert_allclose(A @ x, b, atol=1e-9)
-
-    assert int(ldlt_num_neg_eigvals(packed)) == 32
-
-
-def test_pallas_interpret_batched():
-    A = _saddle(60, 20)
-    batch = jnp.stack([jnp.asarray(A), jnp.asarray(A + 0.5 * np.eye(80))])
-    packed = pallas_ldlt_factor_f32(batch, interpret=True)
-    assert packed.shape[0] == 2
-
-    b = jnp.asarray(rng.standard_normal(80))
-    for i, Ai in enumerate([A, A + 0.5 * np.eye(80)]):
-        # padded factors: solve on the padded shape then truncate
-        n_pad = packed.shape[-1]
-        Aj = np.eye(n_pad)
-        Aj[:80, :80] = Ai
-        x = np.asarray(
-            refine_solve(
-                packed[i], jnp.asarray(Aj), jnp.concatenate([b, jnp.zeros(n_pad - 80)])
-            )
-        )[:80]
-        np.testing.assert_allclose(Ai @ x, np.asarray(b), atol=1e-8)
-
-
 def test_pallas_linear_solver_tier():
-    from pygradflow_tpu.linalg import linear_solver
-    from pygradflow_tpu.params import LinearSolverType
-
+    """The tier's factor/solve/inertia through the ``linear_solver``
+    factory: f64-accurate solve from the f32 factor, exact inertia."""
     lin = linear_solver(LinearSolverType.PallasLDLT, symmetric=True)
+    assert lin.name == "pallas_ldlt"
     A = _saddle(50, 14)
     fact = lin.factor(jnp.asarray(A))
+    packed, _ = fact
+    assert packed.dtype == jnp.float32
     b = rng.standard_normal(64)
     x = np.asarray(lin.solve(fact, jnp.asarray(b)))
     np.testing.assert_allclose(A @ x, b, atol=1e-8)
     assert int(lin.num_neg_eigvals(fact)) == 14
 
-
-def test_hbm_kernel_interpret():
-    """Experimental HBM-streaming kernel: interpret-mode correctness."""
-    from pygradflow_tpu.linalg.pallas_ldlt_hbm import pallas_ldlt_factor_hbm
-
-    A = _saddle(200, 56)
-    packed = pallas_ldlt_factor_hbm(jnp.asarray(A), block=64, interpret=True)
-    b = rng.standard_normal(256)
-    x = np.asarray(refine_solve(packed, jnp.asarray(A), jnp.asarray(b)))
-    np.testing.assert_allclose(A @ x, b, atol=1e-8)
-    assert int(ldlt_num_neg_eigvals(packed)) == 56
+    # iters=0 is the raw f32 back-solve: f32-accurate only
+    x32 = np.asarray(lin.solve(fact, jnp.asarray(b), iters=0))
+    assert _backward_error(A, x32, b) > 1e-12
 
 
-# ----------------------------------------------------------------------
-# Two-level factorization (Pallas diagonal blocks + XLA GEMM trailing
-# updates) — the tier above PALLAS_HBM_MAX_N
-# ----------------------------------------------------------------------
+# sizes across the thresholds the earlier kernel routing used (512, 1280,
+# 2048 rows): one code path now serves all of them
+@pytest.mark.parametrize("size", [64, 256, 640, 1300])
+def test_tier_factor_refine_inertia(size):
+    n, m = _split(size)
+    A = _saddle(n, m)
+    b = rng.standard_normal(size)
+
+    lin = linear_solver(LinearSolverType.PallasLDLT, symmetric=True)
+    fact = jax.jit(lin.factor)(jnp.asarray(A))
+    x = np.asarray(jax.jit(lin.solve)(fact, jnp.asarray(b)))
+
+    # f32 factor refined three times in f64 on a well-conditioned system:
+    # the backward error reaches the f64 floor
+    assert _backward_error(A, x, b) <= 1e-12
+    np.testing.assert_allclose(x, np.linalg.solve(A, b), rtol=1e-9, atol=1e-12)
+    assert int(lin.num_neg_eigvals(fact)) == m
 
 
-def test_two_level_matches_unblocked():
-    from pygradflow_tpu.linalg.two_level_ldlt import ldlt_factor_two_level
+@pytest.mark.parametrize("batching", ["vmap", "leading_dims"])
+@pytest.mark.parametrize("size", [200, 520])
+def test_tier_batched(batching, size):
+    """Below and above one 512-row panel stack; ``jax.vmap`` and explicit
+    ``(B, n, n)`` stacks give the same factors as one-by-one calls."""
+    n, m = _split(size)
+    mats = np.stack([_saddle(n, m) for _ in range(2)])
+    rhs = rng.standard_normal((2, size))
+    lin = linear_solver(LinearSolverType.PallasLDLT, symmetric=True)
 
-    A = _saddle(250, 70)  # n=320: 3 super-blocks of 128
-    f_two = np.asarray(
-        ldlt_factor_two_level(
-            jnp.asarray(A), super_block=128, block=64, interpret=True
-        )
-    )
-    f_ref = np.asarray(ldlt_factor(jnp.asarray(A, dtype=jnp.float32)))
-    np.testing.assert_allclose(
-        np.tril(f_two), np.tril(f_ref), rtol=2e-3, atol=2e-3
-    )
-    assert int(ldlt_num_neg_eigvals(jnp.asarray(f_two))) == 70
+    if batching == "vmap":
+        fact = jax.vmap(lin.factor)(jnp.asarray(mats))
+        x = np.asarray(jax.vmap(lin.solve)(fact, jnp.asarray(rhs)))
+    else:
+        fact = lin.factor(jnp.asarray(mats))
+        x = np.asarray(lin.solve(fact, jnp.asarray(rhs)))
 
-
-def test_two_level_refine_solve_and_inertia():
-    from pygradflow_tpu.linalg.two_level_ldlt import ldlt_factor_two_level
-
-    A = _saddle(200, 56)
-    packed = ldlt_factor_two_level(
-        jnp.asarray(A), super_block=128, block=64, interpret=True
-    )
-    b = rng.standard_normal(256)
-    x = np.asarray(refine_solve(packed, jnp.asarray(A), jnp.asarray(b)))
-    np.testing.assert_allclose(A @ x, b, atol=1e-8)
-    assert int(ldlt_num_neg_eigvals(packed)) == 56
+    packed = np.asarray(fact[0])
+    assert packed.shape == (2, size, size)
+    for i in range(2):
+        single = np.asarray(ldlt_factor_f32(jnp.asarray(mats[i])))
+        np.testing.assert_allclose(np.tril(packed[i]), np.tril(single), rtol=1e-6, atol=1e-6)
+        assert _backward_error(mats[i], x[i], rhs[i]) <= 1e-12
+    np.testing.assert_array_equal(np.asarray(lin.num_neg_eigvals(fact)), [m, m])
 
 
-def test_two_level_vmap():
-    import jax
-
-    from pygradflow_tpu.linalg.two_level_ldlt import ldlt_factor_two_level
-
-    A0 = _saddle(140, 52)  # n=192
-    A1 = A0 + 0.3 * np.eye(192)
-    batch = jnp.stack([jnp.asarray(A0), jnp.asarray(A1)])
-
-    fn = lambda m: ldlt_factor_two_level(
-        m, super_block=128, block=64, interpret=True
-    )
-    packed = jax.vmap(fn)(batch)
-    for i, Ai in enumerate([A0, A1]):
-        f_ref = np.asarray(ldlt_factor(jnp.asarray(Ai, dtype=jnp.float32)))
-        np.testing.assert_allclose(
-            np.tril(np.asarray(packed[i])), np.tril(f_ref), rtol=2e-3, atol=2e-3
-        )
-
-
-def test_factor_guard_poisons_garbage():
-    """The residual guard must pass a genuine factor and poison a
-    corrupted one (the HBM kernel's silent-miscompile signature is finite
-    ~1e34 garbage, CLAUDE.md)."""
-    from pygradflow_tpu.linalg.two_level_ldlt import guard_factor
-
-    A = jnp.asarray(_saddle(100, 28), dtype=jnp.float32)
-    packed = ldlt_factor(A)
-
-    ok = guard_factor(packed, A)
-    assert bool(jnp.all(jnp.isfinite(jnp.tril(ok))))
-
-    garbage = packed.at[50, 10].set(1e34)
-    bad = guard_factor(garbage, A)
-    assert bool(jnp.all(jnp.isnan(bad)))
-
-    nan_factor = packed.at[3, 3].set(jnp.nan)
-    still_bad = guard_factor(nan_factor, A)
-    assert not bool(jnp.all(jnp.isfinite(still_bad)))
-
-
-def test_two_level_host_reconstruction():
-    """Independent host-f64 reconstruction of the two-level factor:
-    L D L^T must reproduce the input to f32 accuracy.  The on-TPU
-    counterpart (every shipped size incl. 8192) lives in
-    benchmarks/verify_two_level.py as the ``recon_rel_f64`` field —
-    correctness evidence that does not route through any on-chip
-    arithmetic a Mosaic miscompile could corrupt alongside the factor."""
-    from pygradflow_tpu.linalg.two_level_ldlt import ldlt_factor_two_level
-
-    n, m = 512, 128
-    A = _saddle(n, m)  # (n + m, n + m) saddle system
-    packed = np.asarray(
-        ldlt_factor_two_level(jnp.asarray(A, dtype=jnp.float32), interpret=True),
-        dtype=np.float64,
-    )
+def test_tier_host_reconstruction():
+    """Independent host-f64 reconstruction of the f32 factor at n+m = 640:
+    L D L^T reproduces the input to f32 accuracy."""
+    n, m = _split(640)
+    A = _saddle(n, m)
+    packed = np.asarray(ldlt_factor_f32(jnp.asarray(A)), dtype=np.float64)
     L = np.tril(packed, -1) + np.eye(n + m)
     recon = (L * np.diag(packed)[None, :]) @ L.T
     rel = np.abs(recon - A).max() / np.abs(A).max()
     assert rel < 5e-5, rel
 
 
-def test_two_level_adaptive_super_block():
-    """``super_block=None`` sizes the blocks to minimize identity padding
-    (n just above the kernel ceiling splits in two instead of padding to
-    3x the ceiling) and still matches the unblocked factor."""
-    import pygradflow_tpu.linalg.two_level_ldlt as tl
-
-    orig = tl.MAX_SUPER_BLOCK
-    tl.MAX_SUPER_BLOCK = 128
-    try:
-        # n=200 > 128: adaptive picks 2x100 (no padding) instead of 2x128
-        A = _saddle(150, 50)
-        packed = tl.ldlt_factor_two_level(
-            jnp.asarray(A), super_block=None, block=64, interpret=True
-        )
-        assert packed.shape == (200, 200)  # no padding leaked out
-        f_ref = np.asarray(ldlt_factor(jnp.asarray(A, dtype=jnp.float32)))
-        np.testing.assert_allclose(
-            np.tril(np.asarray(packed)), np.tril(f_ref), rtol=2e-3, atol=2e-3
-        )
-        assert int(ldlt_num_neg_eigvals(packed)) == 50
-    finally:
-        tl.MAX_SUPER_BLOCK = orig
-
-
 def test_batched_panels_matches_single_and_recon():
-    """Cross-instance panel-batched factor (round-5 directive #2): per
-    instance the packed factor must match the single-instance reference
-    loop at f32 accuracy, the host-f64 reconstruction must be f32-clean,
-    inertia exact, and the f64 refine_solve must still converge."""
-    from pygradflow_tpu.linalg.two_level_ldlt import ldlt_factor_batched_panels
-
+    """Batched panel factor: per instance the packed factor must match the
+    single-instance reference loop at f32 accuracy, the host-f64
+    reconstruction must be f32-clean, inertia exact, and the f64
+    refine_solve must still converge."""
     B = 3
     mats = np.stack([_saddle(272, 112) for _ in range(B)])  # n=384: 3 SBs
-    packed = ldlt_factor_batched_panels(jnp.asarray(mats), super_block=128)
+    packed = ldlt_factor_f32(jnp.asarray(mats), super_block=128)
 
     for b in range(B):
         f_ref = np.asarray(ldlt_factor(jnp.asarray(mats[b], dtype=jnp.float32)))
         np.testing.assert_allclose(
             np.tril(np.asarray(packed[b])), np.tril(f_ref), rtol=2e-3, atol=2e-3
         )
-        # independent host-f64 reconstruction (no on-chip op can vouch)
+        # independent host-f64 reconstruction
         pk = np.asarray(packed[b], dtype=np.float64)
         L = np.tril(pk, -1) + np.eye(384)
         recon = (L * np.diag(pk)[None, :]) @ L.T
@@ -250,23 +161,3 @@ def test_batched_panels_matches_single_and_recon():
     )
     for b in range(B):
         np.testing.assert_allclose(mats[b] @ x[b], rhs[b], atol=1e-7)
-
-
-def test_batched_panels_vmap_route():
-    """jax.vmap of the Pallas factor routes through the panel-batched path
-    at n >= PANEL_BATCH_MIN_N and produces the same factors as explicit
-    batching."""
-    import jax
-
-    from pygradflow_tpu.linalg.pallas_ldlt import PANEL_BATCH_MIN_N
-    from pygradflow_tpu.linalg.two_level_ldlt import ldlt_factor_batched_panels
-
-    n = PANEL_BATCH_MIN_N  # smallest routed size
-    mats = np.stack([_saddle(3 * n // 4, n // 4) for _ in range(2)])
-    via_vmap = np.asarray(
-        jax.vmap(lambda m: pallas_ldlt_factor_f32(m, interpret=True))(
-            jnp.asarray(mats)
-        )
-    )
-    explicit = np.asarray(ldlt_factor_batched_panels(jnp.asarray(mats)))
-    np.testing.assert_allclose(via_vmap, explicit, rtol=0, atol=0)

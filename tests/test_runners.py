@@ -155,3 +155,26 @@ def test_mps_native_matches_python(tmp_path):
     np.testing.assert_array_equal(d_native.var_lb, d_py.var_lb)
     np.testing.assert_array_equal(d_native.var_ub, d_py.var_ub)
     assert d_native.obj_offset == d_py.obj_offset
+
+
+def test_runner_fails_on_unavailable_backend(tmp_path):
+    """A backend that cannot start fails the sweep before any output; the
+    runner does not carry on on another device."""
+    import subprocess
+    import sys
+
+    out = tmp_path / "out"
+    code = (
+        "from pygradflow_tpu.runners.hs_runner import HSRunner\n"
+        f"HSRunner().main(['--output', {str(out)!r}, '--name', 'hs28'])\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        env=dict(os.environ, JAX_PLATFORMS="rocm"),  # a backend the CPU and CUDA builds lack
+        capture_output=True,
+        text=True,
+        timeout=300,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    )
+    assert proc.returncode != 0
+    assert not out.exists()

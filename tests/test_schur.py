@@ -179,8 +179,7 @@ def test_pendulum_schur_btd_mixed_precision():
 
 def test_pendulum_schur_dense_dual_mixed_precision():
     """The DENSE dual tier with PallasLDLT now also runs f32 block
-    inverses/assembly/elimination with f64 saddle refinement (the f64
-    GEMMs it replaced lower to slow bf16-emulation passes on TPU); the
+    inverses/assembly/elimination with f64 saddle refinement; the
     trajectory must still match the all-f64 dense Schur path."""
     from pygradflow_tpu import LinearSolverType
     from pygradflow_tpu.runners.control import PendulumControlInterleaved
@@ -243,7 +242,7 @@ def test_bcr_solve_matches_dense():
 
 
 def test_bcr_hybrid_base_matches_thomas():
-    """Shallow reduction + dense root (incl. the external Pallas-tier
+    """Shallow reduction + dense root (incl. the external mixed-tier
     root) must agree with the sequential block-Thomas factorization."""
     import numpy as np
 
@@ -271,7 +270,7 @@ def test_bcr_hybrid_base_matches_thomas():
         sol = bcr_solve(fact, jnp.asarray(rhs))
         np.testing.assert_allclose(np.asarray(sol), np.asarray(ref), rtol=1e-10)
 
-    # external root tier (Pallas f32 + f64 refinement; interpret on CPU):
+    # external root tier (f32 factor + f64 refinement):
     # root size 32*q=64 is not 128-aligned, so pad the problem to 64 blocks
     mb2 = 128
     diag2 = rng.standard_normal((mb2, q, q))

@@ -80,8 +80,8 @@ def test_staged_matches_dense_schur():
 
 
 def test_staged_pallas_tier_matches():
-    """Mixed-precision staged path (Pallas f32 root + f64 refinement,
-    interpret mode on CPU) must track the f64 staged path."""
+    """Mixed-precision staged path (f32 root + f64 refinement) must
+    track the f64 staged path."""
     prob = PendulumControlInterleaved(N=24)
     x0 = prob.x0_trajectory()
     ref = Solver(prob, _params(True)).solve(x0)
